@@ -41,8 +41,8 @@ def categorical():
                   for l in logits]).astype(float)
 
     with pmb.Model():
-        # separate_trees gives each class its own forest and the fused
-        # cat_logit megakernel path on TPU
+        # separate_trees gives each class its own forest and the
+        # closed-form cat_logit particle weights
         lo = pmb.BART("logodds", X, Y, m=10, shape=(n_class, n),
                       separate_trees=True)
         pmb.Categorical("y", p=pmb.math.softmax(lo.T, axis=-1), observed=Y)

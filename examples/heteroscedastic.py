@@ -24,8 +24,8 @@ def main():
     Y = rng.normal(mu_true, sd_true)
 
     with pmb.Model():
-        # separate_trees gives each output its own forest — and a fused
-        # megakernel path on TPU (mean forest: Gaussian with per-row
+        # separate_trees gives each output its own forest — and
+        # closed-form particle weights (mean forest: Gaussian with per-row
         # precision from |w[1]|+c; scale forest: the het_abs code)
         w = pmb.BART("w", X, Y, m=30, shape=(2, n), separate_trees=True)
         pmb.Normal("y", w[0], pmb.math.abs(w[1]) + 0.05, observed=Y)

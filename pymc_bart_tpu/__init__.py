@@ -1,6 +1,6 @@
-"""pymc_bart_tpu — a TPU-native Bayesian Additive Regression Trees engine.
+"""pymc_bart_tpu — an accelerator-native Bayesian Additive Regression Trees engine.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA re-design of the capabilities of
 pymc-devs/pymc-bart (reference mounted read-only; see SURVEY.md):
 the BART sum-of-trees random variable, the PGBART particle-Gibbs sampler
 over fixed-depth SoA tree tensors, an HMC compound step for non-BART free

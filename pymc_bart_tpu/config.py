@@ -1,4 +1,4 @@
-"""Frozen configuration pytrees for the TPU-native BART engine.
+"""Frozen configuration pytrees for the BART engine.
 
 The reference carries user configuration as kwargs on ``BART(...)``
 (reference ``pymc_bart/bart.py:112-124``: m, alpha, beta, response,
@@ -94,7 +94,7 @@ class BartConfig:
     """Static (hashable) configuration of one BART random variable.
 
     Matches the user surface of reference ``pymc_bart/bart.py:112-124``.
-    ``max_depth`` is new: the TPU engine uses fixed-depth structure-of-arrays
+    ``max_depth`` is new: this engine uses fixed-depth structure-of-arrays
     tree tensors, so tree depth is bounded at ``max_depth`` (the depth prior
     alpha*(1+d)^-beta makes deep nodes exponentially unlikely; with the
     default alpha=0.95, beta=2 the grow probability at depth 6 is ~2%).

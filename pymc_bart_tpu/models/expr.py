@@ -1,7 +1,7 @@
 """Minimal lazy expression graph for model definitions.
 
 The reference rides on PyTensor for its symbolic graph (reference
-bart.py:24-28).  The TPU-native framework needs only enough symbolic
+bart.py:24-28).  The JAX framework needs only enough symbolic
 structure to let users write the reference's model idioms —
 ``pm.Normal("y", mu, sigma, observed=Y)``, ``w[0]``, ``pm.math.abs(w[1])``,
 ``pm.math.softmax(lo.T, axis=-1)`` (reference tests/test_bart.py:117-156)

@@ -1,9 +1,9 @@
 // bartcore: host-side (CPU) sum-of-trees predictor over the same
-// structure-of-arrays tree tensors the TPU kernels use.
+// structure-of-arrays tree tensors the JAX sampler uses.
 //
 // Role: the reference implements its entire tree runtime natively (the
 // external bartrs crate's TreeArrays.predict; SURVEY 2.3).  In the
-// TPU-native redesign the hot path is XLA, and this small C++ core is the
+// accelerator-native redesign the hot path is XLA, and this small C++ core is the
 // host-side counterpart: a dependency-free predictor used (a) as an
 // independent cross-check oracle for the JAX kernels, (b) as a fast
 // fallback for CPU-only deployments of fitted models.  Semantics match

@@ -118,6 +118,7 @@ def tree_predict_excluded(split_var, split_val, split_set, leaf, count, slope,
         out = out + jnp.einsum(
             "ns,nsk->nk", mass * leaf_here[None, :], level_vals,
             preferred_element_type=jnp.float32,
+            precision=jax.lax.Precision.HIGHEST,
         )
         if d == depth:
             break

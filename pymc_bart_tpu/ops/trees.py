@@ -2,7 +2,7 @@
 
 The reference stores each sampled decision tree as a native ``TreeArrays``
 object — flattened per-node arrays with a native ``.predict()`` (reference
-SURVEY 2.3; used at ``pymc_bart/utils.py:81-94``).  The TPU-native design
+SURVEY 2.3; used at ``pymc_bart/utils.py:81-94``).  This design
 goes further: a whole *forest* (m trees x node slots) is one pytree of
 dense arrays with a complete-binary-tree slot layout, so every sampler and
 prediction operation is a fixed-shape vectorized kernel.
@@ -123,7 +123,7 @@ def subset_member(cat_i32: jax.Array, split_val, salt_i32: jax.Array):
     supports ANY number of categories in one word (reference
     docs/api_reference.rst:16 SubsetSplitRule has no category bound).
     The integer mixing uses int32-range constants and logical shifts so
-    XLA, Mosaic and the C++ core (native/bartcore.cpp) compute identical
+    XLA and the C++ core (native/bartcore.cpp) compute identical
     bits.
     """
     h = salt_i32 ^ (cat_i32 * jnp.int32(1103515245))

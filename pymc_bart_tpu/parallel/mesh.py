@@ -2,12 +2,12 @@
 
 The reference's only parallelism is PyMC's chains-as-OS-processes with a
 Manager-list for cross-process tree shipping (reference bart.py:130-132;
-SURVEY 2.4).  The TPU-native equivalents:
+SURVEY 2.4).  The equivalents here:
 
 * chains  — a vmapped leading axis sharded over the ``"chains"`` mesh
   axis (embarrassingly parallel; no collectives on the hot path).
 * data    — optional sharding of the n-row axis for very large n; leaf
-  sufficient statistics then reduce with ``psum`` over ICI.
+  sufficient statistics then reduce with ``psum`` over the mesh.
 * hosts   — ``jax.distributed.initialize`` + a global mesh; chain draws
   gather to their owning host only at trace end (no pickling of trees).
 
@@ -43,7 +43,7 @@ def make_mesh(n_chain_shards: Optional[int] = None, n_data_shards: int = 1,
 
     Defaults to all visible devices on the chains axis.  With
     ``n_data_shards > 1`` the device grid is (chains, data) and row-space
-    reductions ride ICI within a data group: pass
+    reductions ride collectives within a data group: pass
     ``pgbart_step(..., data_axis="data")`` inside a shard_map whose row
     arrays (X, targets, tree_pred, sum_trees, Welford stats) carry
     PartitionSpec("data") — child sufficient statistics, likelihood

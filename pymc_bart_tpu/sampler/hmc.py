@@ -13,7 +13,7 @@ matrix from a Welford variance estimate of the posterior draws.  The
 trajectory length is jittered uniformly over [1, max_leapfrog] steps.
 BART models carry only a handful of continuous parameters (sigmas,
 intercepts), so a well-adapted HMC matches NUTS statistically at a
-fraction of the control-flow cost inside the TPU graph.
+fraction of the control-flow cost inside the jitted graph.
 """
 
 from __future__ import annotations

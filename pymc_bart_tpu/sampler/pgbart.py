@@ -1,6 +1,6 @@
 """PGBART: particle-Gibbs BART sampler as fixed-shape JAX kernels.
 
-TPU-native redesign of the reference's native PGBART step method
+Fixed-shape array redesign of the reference's native PGBART step method
 (reference SURVEY 2.3; algorithm per Lakshminarayanan et al.,
 arXiv:1502.04622, and the reference's behavioral history in CHANGELOG.md):
 
@@ -46,6 +46,13 @@ from ..ops.resample import (
     normalize_log_weights,
     systematic_indices,
 )
+
+
+def _exact_dot(a, b):
+    """``a @ b`` in full float32.  Every product on the sampler path is a
+    one-hot selection or sum that must reproduce its operands exactly;
+    at default precision a GPU may run float32 products in TF32."""
+    return jnp.matmul(a, b, precision=jax.lax.Precision.HIGHEST)
 
 
 @jax.tree_util.register_dataclass
@@ -122,21 +129,19 @@ def init_state(X, Y_target, cfg: BartConfig, split_prior=None,
 # ---------------------------------------------------------------------------
 
 
-# n threshold above which per-level sufficient statistics ride a one-hot
-# MXU matmul instead of segment_sum (see _child_stats); small n keeps the
-# scatter so existing small-shape tests stay bit-identical
+# n threshold above which per-level sufficient statistics ride an exact
+# one-hot product instead of segment_sum (see _child_stats), and at which
+# the unsharded Gaussian sampler switches to node-space sufficient
+# statistics; small n keeps segment_sum
 _SEG_MATMUL_N = 16384
 
 
 def _child_stats(leaf_idx, resid, lo: int, width: int, data_axis=None):
     """Counts and residual sums for node slots [lo, lo+width).
 
-    O(n) via ``segment_sum`` — the round-3 implementation materialized an
-    (n, width) one-hot and einsummed it, which at the large-n bench shape
-    (n=50k, P=20 vmapped particles, width up to 64) moved hundreds of MB
-    of HBM per growth round and made the XLA fallback slower than CPU
-    (round-3 VERDICT item 1b).  Rows outside the slot range land in a
-    dump segment.
+    O(n) via ``segment_sum`` below ``_SEG_MATMUL_N`` rows, via one
+    (n, width) one-hot contraction above it.  Rows outside the slot range
+    land in a dump segment.
 
     With ``data_axis`` set (rows sharded over a mesh axis inside
     shard_map), the sufficient statistics are psum-reduced over the row
@@ -146,16 +151,14 @@ def _child_stats(leaf_idx, resid, lo: int, width: int, data_axis=None):
     ids = jnp.where(valid, leaf_idx - lo, width)
     n = leaf_idx.shape[0]
     if n >= _SEG_MATMUL_N:
-        # large n: one-hot MXU matmul instead of segment_sum.  XLA's TPU
-        # scatter emitter goes SERIAL for these in-loop vmapped scatters
-        # (measured 8.75 ms per scatter at n=50k/P=20 — 80% of the whole
-        # draw — while the same scatter isolated runs in 0.04 ms); the
-        # (n, width) one-hot contraction computes identical statistics
-        # as a single dense pass at HBM speed.  precision=HIGHEST keeps
-        # f32-grade accuracy on the MXU; counts are rounded back to the
-        # exact integers they mathematically are.  Gated to n >= 16384
-        # so every small-n path keeps segment_sum's exact float
-        # semantics (the kernel bit-comparability test family).
+        # large n: the (n, width) one-hot contraction computes the same
+        # statistics as a single dense pass, where segment_sum's atomic
+        # adds contend on few segments.  On an H100 at n=50000 it is
+        # faster at widths 2 and 16, slower at 64, and faster in total
+        # over a tree's levels (scripts/onehot_vs_gather.py; numbers in
+        # PERF.md).  precision=HIGHEST keeps full
+        # float32 accuracy; counts are rounded back to the exact
+        # integers they mathematically are.
         oh = (ids[:, None] == jnp.arange(width, dtype=jnp.int32)[None, :]
               ).astype(jnp.float32)            # (n, width); dump row = 0
         z = jnp.concatenate(
@@ -178,19 +181,8 @@ def _child_stats(leaf_idx, resid, lo: int, width: int, data_axis=None):
 
 
 def _leaf_rsum(resid, li, S: int, data_axis=None):
-    """Per-leaf residual sums for refinement prior centers: (S, k).
-
-    Same serial-scatter avoidance as ``_child_stats``: one-hot matmul
-    for large n, exact segment_sum below the gate."""
-    n = li.shape[0]
-    if n >= _SEG_MATMUL_N:
-        oh = (li[:, None] == jnp.arange(S, dtype=jnp.int32)[None, :]
-              ).astype(jnp.float32)
-        out = jax.lax.dot_general(
-            oh, resid, (((0,), (0,)), ((), ())),
-            precision=jax.lax.Precision.HIGHEST)
-    else:
-        out = jax.ops.segment_sum(resid, li, num_segments=S)
+    """Per-leaf residual sums for refinement prior centers: (S, k)."""
+    out = jax.ops.segment_sum(resid, li, num_segments=S)
     if data_axis is not None:
         out = jax.lax.psum(out, data_axis)
     return out
@@ -215,19 +207,19 @@ def _grow_round_const(rands, frozen, sv, sl, st, lf, ct, leaf_idx, pred,
     prediction once at the end), and returns
     ``(sv, sl, st, lf, ct, leaf_idx, pred, nN, nR, nQ, occ)``.
 
-    TPU profile note (v5e, n=50k): per-row dynamic gathers
-    (``take_along_axis``, ``leaf[idx]``) and ``segment_max`` cost ~5 ms
-    each at this shape while fused masked reductions, ``segment_sum``
-    and small matmuls cost ~0.05 ms — so this formulation expresses all
-    row-space work as masked blends over the level's G nodes, one
-    (n, p)x(p, G) matmul for per-node x columns, and ``segment_sum``
-    sufficient statistics.  It also carries per-row predictions
-    incrementally (rows that route take their child's leaf value), so
-    the caller never re-derives predictions via gathers.
+    This formulation expresses all row-space work as masked blends over
+    the level's G nodes, one (n, p)x(p, G) one-hot product for per-node
+    x columns, and ``_child_stats`` sufficient statistics, with no
+    per-row dynamic gather or ``segment_max``.  It also carries per-row
+    predictions incrementally (rows that route take their child's leaf
+    value), so the caller never re-derives predictions via gathers.
+    The one-hot products run at ``Precision.HIGHEST``: a reduced-precision
+    float32 product (TF32 on GPU tensor cores) would round ``x`` and
+    route a row to the wrong side of a split value drawn exactly from X.
 
     Semantically identical to ``_grow_round`` (same RNG consumption,
     same winner row, same committed state) — equivalence is covered by
-    the megakernel bit-comparability tests.  Returns updated
+    tests/test_grow_round.py.  Returns updated
     ``(sv, sl, st, lf, ct, leaf_idx, pred)``.
     """
     n, p = X_z.shape
@@ -280,13 +272,13 @@ def _grow_round_const(rands, frozen, sv, sl, st, lf, ct, leaf_idx, pred,
     valx = jnp.where(frozen, sl[lo:hi], val_s)
     active = jnp.where(frozen, node_sv >= 0, want_grow)
 
-    # candidate x value per (row, node) in ONE MXU matmul, then G-term
-    # masked blends collapse per-node params onto rows
+    # candidate x value per (row, node) in ONE exact one-hot product,
+    # then G-term masked blends collapse per-node params onto rows
     M = (jnp.arange(p, dtype=jnp.int32)[None, :]
          == varx_c[:, None]).astype(jnp.float32)   # (G, p)
-    xv_nodes = X_z @ M.T                           # (n, G)
+    xv_nodes = _exact_dot(X_z, M.T)                # (n, G)
     if x_nan:
-        xnan_nodes = x_nanm.astype(jnp.float32) @ M.T
+        xnan_nodes = _exact_dot(x_nanm.astype(jnp.float32), M.T)
 
     valx_clean = jnp.nan_to_num(valx, nan=0.0)
     valx_isnan = jnp.isnan(valx)
@@ -404,8 +396,8 @@ def _grow_round(rands, frozen, sv, sl, st, lf, ct, sp, leaf_idx, d: int, X,
     frozen: bool[] — if True, replay the stored tree one level instead of
     growing (the conditional-SMC reference particle).
     ``rands`` is a dict of pre-drawn random numbers for this particle and
-    round (drawn batched in _update_one_tree; also feeds the fused Pallas
-    kernel so both paths are bit-identical).
+    round (drawn batched in _update_one_tree; the same block feeds
+    ``_grow_round_const``, so the two formulations are comparable).
 
     ``data_axis``: mesh axis name when ROWS are sharded (X, resid,
     leaf_idx and ``rands["row_gum"]`` hold this shard's rows; node-level
@@ -448,8 +440,8 @@ def _grow_round(rands, frozen, sv, sl, st, lf, ct, sp, leaf_idx, d: int, X,
     # deterministic tie-break: the MIN row index attaining the node max
     # (float32 Gumbel ties occur at ~0.3% per node at n=50k; averaging
     # the tying rows' values yielded an unobserved split value and broke
-    # bit-comparability with _grow_round_const / the Pallas kernels,
-    # which all take the first tying row — round-4 ADVICE low #3)
+    # comparability with _grow_round_const, which takes the first tying
+    # row)
     win_row = jax.ops.segment_min(
         jnp.where(is_win, jnp.arange(n, dtype=jnp.int32), n), g_ids,
         num_segments=G + 1)[:G]
@@ -554,24 +546,6 @@ def _grow_round(rands, frozen, sv, sl, st, lf, ct, sp, leaf_idx, d: int, X,
 import os as _os
 
 
-def _pallas_enabled(cfg: BartConfig, X) -> bool:
-    """Use the fused Pallas growth kernel when it covers this config.
-
-    Scope: constant/linear/mix leaf response (round-5: the grow kernel
-    carries per-child least-squares slope statistics), X resident in
-    VMEM (n*p under ~2M elements).  Override with PYMC_BART_TPU_PALLAS=0/1.
-    """
-    env = _os.environ.get("PYMC_BART_TPU_PALLAS")
-    if env is not None:
-        return env not in ("0", "false", "False")
-    if jax.default_backend() != "tpu":
-        return False  # interpret-mode Pallas is much slower than plain JAX
-    n, p = X.shape
-    # n cap: the per-round grow kernel holds several (P, n) row blocks in
-    # VMEM; very large n must stay on the XLA path
-    return n * p <= 2_000_000 and n <= 30_000
-
-
 def _update_one_tree(key, tree: Forest, sum_noi, resid, alpha_vec, leaf_sd,
                      X, rules, cfg: BartConfig, pg: PgbartConfig,
                      loglik_fn: Callable, lik_params, gauss_w=None,
@@ -583,13 +557,12 @@ def _update_one_tree(key, tree: Forest, sum_noi, resid, alpha_vec, leaf_sd,
     ``data_axis``: mesh axis name when rows are sharded (X/resid/gauss_w
     hold this shard's rows).  Sufficient statistics, likelihood sums and
     the split-value winner ride psum/pmax over the axis; with a custom
-    ``loglik_fn`` the function itself must psum its row sum.  Pallas
-    paths are disabled (per-device kernels see only local rows).
+    ``loglik_fn`` the function itself must psum its row sum.
 
-    ``lik``: fused likelihood code (see ops/draw_pallas module docstring).
-    For the non-Gaussian codes this XLA path evaluates the same closed
-    form and consumes the same RNG sequence as the megakernel, so the
-    two are bit-comparable under ``rng_mode="reference"``.
+    ``lik``: closed-form likelihood code detected from the model
+    (``compound._fused_likelihood``): "gauss", "bernoulli", "het_abs",
+    "het_exp" or "cat_logit"; the non-Gaussian codes evaluate their
+    closed form per row instead of calling ``loglik_fn``.
     """
     P = pg.num_particles
     S = cfg.n_nodes
@@ -626,32 +599,23 @@ def _update_one_tree(key, tree: Forest, sum_noi, resid, alpha_vec, leaf_sd,
     def particle_pred(sv_p, lf_p, sp_p, li_p):
         return leaf_values_at(sv_p, lf_p, sp_p, X, li_p)  # (n, k)
 
-    use_pallas = (_pallas_enabled(cfg, X) and data_axis is None
-                  and lik == "gauss")
-    fused_gauss = use_pallas and (gauss_w is not None)
     sharded_gauss = data_axis is not None and gauss_w is not None
-    # non-Gaussian closed-form codes (kernel-comparable; see draw_pallas)
+    # non-Gaussian closed-form likelihood codes
     fused_other = lik in ("bernoulli", "het_abs", "het_exp", "cat_logit")
-    # sufficient-statistics Gaussian mode (the big-n KERNEL's formulation,
-    # ops/bign_pallas.py idea 1, as shardable XLA): with a scalar
-    # precision and constant response the particle log-likelihood is an
-    # exact function of per-node (count, sum r, sum r^2), so SMC weights,
-    # resampling, selection AND refinement need no O(P*n) row passes —
-    # only the already-psum'd child statistics.  This is how the
-    # (chains x data) row sharding composes with the big-n fast path
-    # (round-4 VERDICT "Next round" #8): each shard contributes local
-    # stats via psum and all node-space algebra stays replicated.
-    # PYMC_BART_TPU_SUFFSTATS=1 also enables it UNsharded so its
-    # per-shard cost is measurable on one real chip; =0 forces it off.
-    # Unsharded it engages by itself at n >= _SEG_MATMUL_N — the shapes
-    # that reach this XLA path at such n are exactly the ones the bign
-    # kernel does not cover (p > 512, n beyond the li scratch, kernels
-    # disabled), where node-space algebra is strictly cheaper; below
-    # the gate the row-space path keeps its exact bit semantics.
+    # sufficient-statistics Gaussian mode: with a scalar precision and
+    # constant response the particle log-likelihood is an exact function
+    # of per-node (count, sum r, sum r^2), so SMC weights, resampling,
+    # selection AND refinement need no O(P*n) row passes — only the
+    # already-psum'd child statistics.  This is how (chains x data) row
+    # sharding composes with large n: each shard contributes local stats
+    # via psum and all node-space algebra stays replicated.
+    # PYMC_BART_TPU_SUFFSTATS=1 also enables it unsharded at any n;
+    # =0 forces it off.  Unsharded it engages by itself at
+    # n >= _SEG_MATMUL_N, where node-space algebra is strictly cheaper;
+    # below the gate the row-space path keeps its exact bit semantics.
     _suff_env = _os.environ.get("PYMC_BART_TPU_SUFFSTATS")
     suff_gauss = (gauss_w is not None and w_scalar and lik == "gauss"
                   and cfg.response == "constant" and k == 1
-                  and not use_pallas
                   and _suff_env not in ("0", "false", "False")
                   and (data_axis is not None or _suff_env == "1"
                        or n >= _SEG_MATMUL_N))
@@ -680,9 +644,6 @@ def _update_one_tree(key, tree: Forest, sum_noi, resid, alpha_vec, leaf_sd,
             if data_axis is not None:
                 ll_p = jax.lax.psum(ll_p, data_axis)
             return ll_p
-        if fused_gauss:  # constant-free Gaussian ll, matches the kernel's
-            diff = resid[None] - pred_all
-            return -0.5 * jnp.sum(gauss_w[None] * diff * diff, axis=(1, 2))
         if sharded_gauss:  # row-sharded Gaussian ll: psum the row sums
             diff = resid[None] - pred_all
             local = -0.5 * jnp.sum(gauss_w[None] * diff * diff, axis=(1, 2))
@@ -713,7 +674,7 @@ def _update_one_tree(key, tree: Forest, sum_noi, resid, alpha_vec, leaf_sd,
             # exact Gaussian ll of one particle's depth-truncated
             # prediction: every row predicts its occupied node's leaf
             # value, so  ll = -w/2 * sum_s occ_s (Q - 2 lf R + lf^2 N)
-            # (same closed form as the big-n kernel; no row pass)
+            # (no row pass)
             lv = lf_p[:, 0]
             t = nQ_p - 2.0 * lv * nR_p + lv * lv * nN_p
             return -0.5 * w_val * jnp.sum(jnp.where(occ_p, t, 0.0))
@@ -723,17 +684,6 @@ def _update_one_tree(key, tree: Forest, sum_noi, resid, alpha_vec, leaf_sd,
         ll = eval_ll(pred)
     log_w = ll
     ll_prev = ll
-    take = jnp.arange(P, dtype=jnp.int32)
-
-    if use_pallas:
-        # k-major particle layout for the fused kernels (the long axis
-        # must be last so Mosaic's (8,128) tiling does not pad k=1 dims)
-        lf = lf.transpose(0, 2, 1)      # (P, k, S)
-        sp = sp.transpose(0, 2, 1)
-        pred = pred.transpose(0, 2, 1)  # (P, k, n)
-        residT = resid.T                # (k, n)
-        llwT = (gauss_w.T if fused_gauss
-                else jnp.zeros((k, n), jnp.float32))
 
     # one batched RNG block per tree update (instead of per round): slices
     # index by the level offset 2^d - 1
@@ -764,19 +714,7 @@ def _update_one_tree(key, tree: Forest, sum_noi, resid, alpha_vec, leaf_sd,
             "set_bits": set_bits_all[:, off : off + G],
             "u_mix": u_mix_all[:, 2 * off : 2 * off + 2 * G],
         }
-        if use_pallas:
-            from ..ops.grow_pallas import grow_round_pallas
-
-            sv, sl, st, lf, ct, sp, leaf_idx, pred, ll_k = grow_round_pallas(
-                take, frozen, sv, sl, st, lf, ct, sp, leaf_idx, pred,
-                X, residT, rules, alpha_cdf, leaf_sd, llwT,
-                rands["u_grow"], rands["u_var"], rands["row_gum"],
-                rands["eps"].transpose(0, 2, 1), rands["set_bits"],
-                rands["u_mix"], d=d, cfg=cfg,
-            )
-            take = jnp.arange(P, dtype=jnp.int32)
-        elif suff_gauss:
-            ll_k = None
+        if suff_gauss:
             (sv, sl, st, lf, ct, leaf_idx, pred,
              nN, nR, nQ, occ) = jax.vmap(
                 lambda r_, fz, a, b, c, e, f_, g_, pr, sN, sR, sQ, so:
@@ -788,7 +726,6 @@ def _update_one_tree(key, tree: Forest, sum_noi, resid, alpha_vec, leaf_sd,
             )(rands, frozen, sv, sl, st, lf, ct, leaf_idx, pred,
               nN, nR, nQ, occ)
         elif const_resp:
-            ll_k = None
             sv, sl, st, lf, ct, leaf_idx, pred = jax.vmap(
                 lambda r_, fz, a, b, c, e, f_, g_, pr: _grow_round_const(
                     r_, fz, a, b, c, e, f_, g_, pr, d, X_z, x_nanm, rules,
@@ -797,7 +734,6 @@ def _update_one_tree(key, tree: Forest, sum_noi, resid, alpha_vec, leaf_sd,
                 )
             )(rands, frozen, sv, sl, st, lf, ct, leaf_idx, pred)
         else:
-            ll_k = None
             sv, sl, st, lf, ct, sp, leaf_idx = jax.vmap(
                 lambda r_, fz, a, b, c, e, f_, g_, h_: _grow_round(
                     r_, fz, a, b, c, e, f_, g_, h_, d, X, rules, alpha_cdf,
@@ -805,26 +741,10 @@ def _update_one_tree(key, tree: Forest, sum_noi, resid, alpha_vec, leaf_sd,
                 )
             )(rands, frozen, sv, sl, st, lf, ct, sp, leaf_idx)
             pred = jax.vmap(particle_pred)(sv, lf, sp, leaf_idx)
-        if fused_gauss:
-            ll = ll_k
-        elif use_pallas:
-            ll = eval_ll(pred.transpose(0, 2, 1))
-        elif suff_gauss:
+        if suff_gauss:
             ll = jax.vmap(node_ll)(lf, nN, nR, nQ, occ)
         else:
             ll = eval_ll(pred)
-
-        if use_pallas and d < D - 1:
-            # fused weight update + ESS-gated systematic resampling; the
-            # ancestor gather itself is folded into the next round's grow
-            # kernel via `take`
-            from ..ops.smc_pallas import smc_resample_pallas
-
-            u = jax.random.uniform(k_res, ())
-            log_w, take, ll_prev = smc_resample_pallas(ll, ll_prev, log_w, u)
-            # pred is NOT gathered here: the next round's grow kernel
-            # reads it (like all particle state) through ``take``
-            continue
 
         log_w = log_w + ll - ll_prev
         ll_prev = ll
@@ -846,37 +766,10 @@ def _update_one_tree(key, tree: Forest, sum_noi, resid, alpha_vec, leaf_sd,
 
     key, k_sel = jax.random.split(key)
 
-    if fused_gauss and k == 1 and const_resp:
-        # fused winner selection + Metropolis refinement (one kernel);
-        # constant response only — the kernel rebuilds predictions from
-        # leaf values alone, which would drop the linear slope term
-        from ..ops.select_pallas import select_refine_pallas
-
-        key, k_eps, k_acc = jax.random.split(key, 3)
-        R = max(pg.num_refinements, 1)
-        if pg.num_refinements > 0:
-            eps_r = jax.random.normal(k_eps, (R, k, S)) \
-                * (0.3 * leaf_sd)[None, :, None]
-            u_acc = jax.random.uniform(k_acc, (R,))
-        else:
-            eps_r = jnp.zeros((R, k, S), jnp.float32)
-            u_acc = jnp.ones((R,), jnp.float32)
-        u_sel = jax.random.uniform(k_sel, ())
-        half_inv_var = 0.5 / (leaf_sd[0] * leaf_sd[0])
-        sv_w, sl_w, st_w, lf_wT, ct_w, li_w, pred_wT = select_refine_pallas(
-            sv, sl, st, lf, ct, leaf_idx, pred, log_w, residT, llwT,
-            eps_r, u_acc, u_sel, half_inv_var, num_refinements=R, m=cfg.m,
-        )
-        new_tree = Forest(sv_w, sl_w, st_w, lf_wT.T, ct_w,
-                          jnp.zeros((S, k), jnp.float32))
-        return new_tree, pred_wT.T
-
     if fused_other and k == 1:
-        # kernel-aligned winner selection + Metropolis refinement for the
-        # non-Gaussian fused codes: consumes the same RNG blocks in the
-        # same order as the megakernel (inverse-CDF winner, pre-drawn
-        # refinement normals/uniforms), so the two paths are
-        # bit-comparable under rng_mode="reference".
+        # winner selection + Metropolis refinement for the non-Gaussian
+        # closed-form codes: inverse-CDF winner and refinement normals /
+        # uniforms pre-drawn as one block per tree update
         key, k_eps, k_acc = jax.random.split(key, 3)
         R = max(pg.num_refinements, 1)
         if pg.num_refinements > 0:
@@ -912,13 +805,7 @@ def _update_one_tree(key, tree: Forest, sum_noi, resid, alpha_vec, leaf_sd,
         eps_scale = 0.3 * leaf_sd
 
         if const_resp:
-            # one-hot matmul instead of a per-row gather (per-row gathers
-            # cost ~5 ms at n=50k on TPU; the (n, S) one-hot is built once
-            # per tree and each refinement is a single MXU matmul)
-            soh_w = (li_w[:, None]
-                     == jnp.arange(S, dtype=jnp.int32)[None, :]
-                     ).astype(jnp.float32)
-            pred_from_leaves = lambda lf_x: soh_w @ lf_x
+            pred_from_leaves = lambda lf_x: lf_x[li_w]
         else:
             # linear/mix: the refinement proposal moves intercepts only,
             # but the prediction must keep the slope term
@@ -943,9 +830,8 @@ def _update_one_tree(key, tree: Forest, sum_noi, resid, alpha_vec, leaf_sd,
 
     if suff_gauss:
         # winner selection + Metropolis leaf refinement entirely in node
-        # space (the big-n kernel's refinement algebra): the ONLY row
-        # work for the whole tree update is the final winner-prediction
-        # one-hot matmul below.  All quantities here are replicated
+        # space: the ONLY row work for the whole tree update is the final
+        # winner prediction below.  All quantities here are replicated
         # across row shards (stats were psum'd at accumulation).
         widx = jax.random.categorical(k_sel, log_w)
         sv_w, sl_w, st_w, lf_w, ct_w = (
@@ -986,22 +872,11 @@ def _update_one_tree(key, tree: Forest, sum_noi, resid, alpha_vec, leaf_sd,
             lf_w, _, _ = jax.lax.fori_loop(
                 0, pg.num_refinements, refine_body, (lf_w, ll_c0, key))
 
-        # the one row pass: winner prediction via one-hot matmul (a
-        # per-row gather costs ~5 ms at n=50k on TPU; the matmul rides
-        # the MXU)
-        soh_w = (li_w[:, None]
-                 == jnp.arange(S, dtype=jnp.int32)[None, :]
-                 ).astype(jnp.float32)
-        pred_w = soh_w @ lf_w                      # (n, k)
+        # the one row pass: the winner's prediction
+        pred_w = lf_w[li_w]                        # (n, k)
         new_tree = Forest(sv_w, sl_w, st_w, lf_w, ct_w,
                           jnp.zeros((S, k), jnp.float32))
         return new_tree, pred_w
-
-    if use_pallas:
-        # restore sampler layout for the XLA winner/refinement path
-        lf = lf.transpose(0, 2, 1)
-        sp = sp.transpose(0, 2, 1)
-        pred = pred.transpose(0, 2, 1)
 
     widx = jax.random.categorical(k_sel, log_w)
     sv_w, sl_w, st_w, lf_w, ct_w, sp_w = (
@@ -1038,10 +913,7 @@ def _update_one_tree(key, tree: Forest, sum_noi, resid, alpha_vec, leaf_sd,
         ll_w = one_ll(pred_w) + log_prior(lf_w)
 
         if const_resp:
-            soh_w = (li_w[:, None]
-                     == jnp.arange(S, dtype=jnp.int32)[None, :]
-                     ).astype(jnp.float32)
-            pred_from_leaves = lambda lf_x: soh_w @ lf_x
+            pred_from_leaves = lambda lf_x: lf_x[li_w]
         else:
             pred_from_leaves = lambda lf_x: leaf_values_at(
                 sv_w, lf_x, sp_w, X, li_w)
@@ -1082,55 +954,6 @@ def split_var_counts(forest: Forest, p: int):
     return onehot.astype(jnp.float32).sum(axis=0)
 
 
-def _bign_enabled(cfg: BartConfig, pg: PgbartConfig, X, gauss_w,
-                  lik: str, w_scalar: bool, all_cont: bool,
-                  x_nan: bool) -> bool:
-    """Use the row-tiled big-n kernel (ops/bign_pallas) when the ordinary
-    megakernel does NOT cover this shape but the big-n kernel does.
-    Override with PYMC_BART_TPU_BIGN=0/1 (=1 also enables interpret mode
-    on CPU, for tests)."""
-    from ..ops.bign_pallas import bign_supported_reason
-    from ..ops.draw_pallas import fused_draw_supported
-
-    env = _os.environ.get("PYMC_BART_TPU_BIGN")
-    if env is not None and env in ("0", "false", "False"):
-        return False
-    if env is None:
-        if jax.default_backend() != "tpu":
-            return False
-        # An explicit PYMC_BART_TPU_PALLAS=0 means "force the non-Pallas
-        # XLA path" for the whole sampler (the CI sampler-path axis);
-        # without this check a megakernel-eligible config would skip the
-        # megakernel early-return below (since _pallas_enabled is False)
-        # and land in the big-n Pallas kernel instead (round-4 ADVICE
-        # medium #1).  An explicit BIGN=1 above still wins.
-        pallas_env = _os.environ.get("PYMC_BART_TPU_PALLAS")
-        if pallas_env is not None and pallas_env in ("0", "false", "False"):
-            return False
-    if (fused_draw_supported(cfg, pg, X, gauss_w, lik)
-            and _pallas_enabled(cfg, X)):
-        return False  # the proven megakernel covers it
-    return bign_supported_reason(cfg, pg, X, lik, w_scalar, all_cont,
-                                 x_nan) is None
-
-
-def _megakernel_enabled(cfg: BartConfig, pg: PgbartConfig, X, gauss_w,
-                        lik: str = "gauss") -> bool:
-    """Use the whole-draw megakernel (ops/draw_pallas) when it covers this
-    config: fused likelihood code, constant response, single output.
-    Override with PYMC_BART_TPU_MEGAKERNEL=0/1."""
-    from ..ops.draw_pallas import fused_draw_supported
-
-    if not fused_draw_supported(cfg, pg, X, gauss_w, lik):
-        return False
-    env = _os.environ.get("PYMC_BART_TPU_MEGAKERNEL")
-    if env is not None:
-        return env not in ("0", "false", "False")
-    if jax.default_backend() != "tpu":
-        return False  # interpret-mode Pallas is much slower than plain JAX
-    return _pallas_enabled(cfg, X)
-
-
 @partial(jax.jit, static_argnames=("cfg", "pg", "loglik_fn", "tuning",
                                    "data_axis", "lik", "lik_const",
                                    "all_cont", "x_nan", "w_scalar"))
@@ -1151,7 +974,7 @@ def pgbart_step(key, state: PgbartState, X, Y_target, rules,
     shard_map (large-n configs, SURVEY 2.4): the per-chain state keeps
     only this shard's rows of X / Y_target / tree_pred / sum_trees while
     tree structures stay replicated; cross-shard reductions ride
-    psum/pmax on ICI.  See tests/test_data_sharding.py.
+    psum/pmax over the mesh.  See tests/test_data_sharding.py.
 
     Returns (new_state, variable_inclusion_counts float32[p]).
     """
@@ -1185,7 +1008,7 @@ def _make_ll_of(loglik_fn, lik_params, gauss_w, lik: str, lik_const: float,
                 Y_target, data_axis):
     """Scalar model log-likelihood of one tree's candidate prediction
     given the other trees' sum (``sum_noi``), matching the SMC weight
-    closed forms of ``_update_one_tree``/the kernels exactly."""
+    closed forms of ``_update_one_tree`` exactly."""
     import jax.numpy as _jnp
 
     def ll_of(sum_noi, pred):
@@ -1229,39 +1052,6 @@ def _pgbart_step_dispatch(key, state, X, Y_target, rules, cfg, pg,
                           loglik_fn, lik_params, tuning, gauss_w,
                           data_axis, lik, lik_const, all_cont, x_nan,
                           w_scalar):
-    if (data_axis is None
-            and _bign_enabled(cfg, pg, X, gauss_w, lik, w_scalar,
-                              all_cont, x_nan)):
-        from ..ops.bign_pallas import pgbart_step_bign
-
-        # large n: the row-tiled kernel.  gauss rides the sufficient-
-        # statistics regime (gauss_w is a per-chain scalar broadcast —
-        # w_scalar is set by the caller from the STATIC model structure);
-        # bernoulli/het/cat_logit ride the row-ll regime (round-5)
-        if lik == "gauss":
-            w_chain = gauss_w.reshape(-1)[0:1]
-            llw = None
-        else:
-            w_chain = jnp.zeros((1,), jnp.float32)
-            llw = (None if lik == "bernoulli"
-                   else gauss_w.reshape(X.shape[0]))
-        return pgbart_step_bign(key, state, X, Y_target, cfg, pg,
-                                w_chain, tuning, lik=lik,
-                                lik_const=lik_const, llw=llw)
-    if data_axis is None and _megakernel_enabled(cfg, pg, X, gauss_w, lik):
-        from ..ops.draw_pallas import pgbart_step_fused
-
-        # measured on v5e: "batched" XLA RNG overlaps with the kernel
-        # and beats in-kernel Mosaic PRNG generation (1.40 vs 1.53 ms per
-        # 4-chain draw at bench shapes — the Gumbel transcendentals cost
-        # more on the VPU than the prefetched block).  The custom_vmap
-        # rule switches to in-kernel PRNG when only the Gumbel block
-        # breaks the VMEM budget; very large n routes to the row-tiled
-        # big-n kernel above, which always generates Gumbels on-chip
-        return pgbart_step_fused(key, state, X, Y_target, rules, cfg, pg,
-                                 gauss_w, tuning, rng_mode="batched",
-                                 lik=lik, lik_const=lik_const,
-                                 all_cont=all_cont, x_nan=x_nan)
     m = cfg.m
     B = pg.batch_size(m, tuning)
     n, p = X.shape

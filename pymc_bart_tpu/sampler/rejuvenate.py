@@ -4,7 +4,7 @@ committed trees (``PgbartConfig(ancestor_sampling=True)``).
 WHY.  The plain particle-Gibbs tree update suffers the classic PG path
 degeneracy: the frozen reference particle usually out-weighs the fresh
 root-grown particles, so trees turn over slowly and the min bulk-ESS
-floor (~5 per 2400 draws on friedman, round-4 BENCH_NOTES) is FLAT in
+floor (~5 per 2400 draws on friedman, round 4) is FLAT in
 particles / batch / refinements.  The literature's cure is Particle
 Gibbs with Ancestor Sampling (Lindsten, Jordan & Schon, 2014): refresh
 the RETAINED path by resampling its history at every SMC step.  Literal
@@ -48,9 +48,9 @@ leaf-stay factor ignores the tiny probability mass the revert adds to
 
 COST.  Each move touches one node's rows: one dynamic column slice of X
 per ancestor level plus O(n) masked reductions — no per-row gathers, so
-it stays cheap at large n and composes with every sampler path
-(megakernel, big-n kernel, XLA) since it runs as plain XLA on the
-committed state.  Row-sharded (``data_axis``) execution psums the
+it stays cheap at large n and composes with every sampler mode
+(row-space, node-space sufficient statistics, row-sharded) since it
+runs as plain XLA on the committed state.  Row-sharded (``data_axis``) execution psums the
 counts / sums / likelihood terms exactly like the main sampler.
 
 Reference: arXiv:1502.04622 (PG-BART) is plain conditional SMC; the
@@ -77,7 +77,7 @@ def _depth_array(S: int) -> np.ndarray:
 
 def _col(X, j):
     """Column j (traced scalar) of X as (n,) — a contiguous dynamic
-    slice, NOT a per-row gather (those cost ~5 ms at n=50k on TPU)."""
+    slice, not a per-row gather."""
     n = X.shape[0]
     return jax.lax.dynamic_slice_in_dim(X, j, 1, axis=1).reshape(n)
 

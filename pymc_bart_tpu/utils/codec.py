@@ -3,7 +3,7 @@
 The reference stores per-draw inclusion counts as LEB128-style varints
 (7 data bits + continuation bit) wrapped in base64, because PyMC sampler
 stats must be scalars/strings (reference ``pymc_bart/utils.py:1343-1373``
-and SURVEY 2.2).  The TPU engine stores plain int arrays natively; this
+and SURVEY 2.2).  This engine stores plain int arrays natively; this
 codec exists for wire compatibility with reference-produced
 InferenceData and for exporting reference-readable stats.
 """

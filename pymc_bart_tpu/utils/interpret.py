@@ -2,7 +2,7 @@
 
 This module computes the *numbers* behind the interpretability suite;
 rendering lives in ``utils/plots.py`` and ``utils/importance.py``.  The
-split is deliberate TPU-first design (capabilities per reference
+split is deliberate accelerator-first design (capabilities per reference
 ``pymc_bart/utils.py``, structure our own):
 
 * ``partial_dependence`` evaluates every requested covariate's partial

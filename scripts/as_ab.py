@@ -1,5 +1,5 @@
 """A/B measurement: ancestor_sampling (retained-path grow/prune
-rejuvenation) on the friedman bench config, real TPU.
+rejuvenation) on the friedman bench config, on the GPU.
 
 Measures steady-state draw rate, min bulk-ESS, R-hat and fit quality
 with the feature off vs on (and optionally more sweeps), printing one
@@ -85,6 +85,9 @@ def run_arm(sweeps, tune=200, draws=600, chains=4, seed=0, tag=None,
 
 
 if __name__ == "__main__":
+    from pymc_bart_tpu.utils.compile_cache import setup_compile_cache
+
+    setup_compile_cache()
     arms = [int(a) for a in sys.argv[1:]] or [0, 1, 2]
     for a in arms:
         run_arm(a)

@@ -1,9 +1,9 @@
 """Sweep PGBART mixing levers and report wall-clock-to-ESS.
 
 BASELINE.md's protocol metric is wall-clock to fixed ESS, not raw
-draws/s; with the megakernel at ~2000 chain-draws/s the end-to-end
-bottleneck on the Gaussian configs is AUTOCORRELATION (round-3 bench:
-friedman min bulk-ESS 4.8 out of 2400 chain-draws).  The levers that
+draws/s; on the Gaussian configs the end-to-end bottleneck can be
+AUTOCORRELATION (round-3 bench: friedman min bulk-ESS 4.8 out of 2400
+chain-draws).  The levers that
 trade draw cost for mixing:
 
 * batch fraction  — trees updated per MCMC step (cost ~linear, mixing
@@ -103,6 +103,9 @@ def main():
     ap.add_argument("--refinements", type=int, nargs="+", default=[5])
     ap.add_argument("--particles", type=int, nargs="+", default=[20])
     args = ap.parse_args()
+    from pymc_bart_tpu.utils.compile_cache import setup_compile_cache
+
+    setup_compile_cache()
 
     rows = []
     for b in args.batch:

@@ -4,7 +4,7 @@ of asserting it (round-4 VERDICT "Next round" #2).
 BASELINE.md demands posterior moments "within Monte-Carlo error" of the
 reference sampler, but the reference (pymc-devs/pymc-bart + the bartrs
 Rust crate) cannot run in this image.  Round 4 therefore ASSERTED that
-the TPU engine's mixing floor (min bulk-ESS ~5 per 2400 draws on
+the engine's mixing floor (min bulk-ESS ~5 per 2400 draws on
 friedman, rhat 1.6-2.0) is the frozen-particle PG floor the reference
 shares.  This script REPLACES that assertion with a measurement: a
 plain-NumPy particle-Gibbs BART with the reference's reconstructed
@@ -22,7 +22,7 @@ semantics (SURVEY 2.3; algorithm arXiv:1502.04622; behavioral history
   alpha_vec, split value uniform over the rows in the leaf, children
   leaf values ~ Normal(child residual mean / m, leaf_sd),
   empty-child proposals revert,
-* no Metropolis leaf refinement (a TPU-engine addition),
+* no Metropolis leaf refinement (an addition of this engine),
 * final tree ~ categorical over normalized particle weights,
 * tuning adaptation matched to the engine (alpha_vec split counts;
   leaf_sd from the Welford running std of per-row predictions) so the
@@ -32,10 +32,10 @@ semantics (SURVEY 2.3; algorithm arXiv:1502.04622; behavioral history
 
 Usage:
     python scripts/reference_pg.py --chains 4 --tune 200 --draws 800
-    python scripts/reference_pg.py --side engine   # same model, TPU repo engine
+    python scripts/reference_pg.py --side engine   # same model, this engine
 
 Prints one JSON line with ess/rhat/moments for mu[0], mu[500], mu[999]
-and sigma.  Record both sides in BENCH_NOTES.md: matching floors
+and sigma.  Record both sides in PERF.md: matching floors
 demonstrate the parity claim; diverging floors expose an engine bug.
 """
 
@@ -284,6 +284,9 @@ def main():
 
     if args.side == "engine":
         import pymc_bart_tpu as pmb
+        from pymc_bart_tpu.utils.compile_cache import setup_compile_cache
+
+        setup_compile_cache()
 
         with pmb.Model():
             mu = pmb.BART("mu", X, Y, m=args.m)

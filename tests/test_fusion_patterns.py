@@ -1,7 +1,5 @@
 """Fusion pattern matcher (_fused_likelihood): one test per accepted
-model form, plus the fallback warning on every backend (round-3 weak #6:
-a near-miss model silently lost the megakernel AND row-sharding
-eligibility, and the warning only fired on TPU)."""
+model form, and a near-miss form that must be rejected."""
 
 import numpy as np
 import pytest
@@ -86,16 +84,3 @@ def test_nonfusable_sigma_referencing_bart_is_rejected():
         mu = pmb.BART("mu", X, Y, m=3)
         pmb.Normal("y", mu, pmb.math.abs(mu) + 0.1, observed=Y)
     assert _fused_likelihood(model, model.bart_rvs[0]) is None
-
-
-def test_fallback_warning_fires_on_cpu():
-    """The fast-path telemetry warns on EVERY backend now."""
-    X, rng = _data()
-    Y = rng.normal(size=len(X)).astype(np.float32)
-    with pmb.Model():
-        mu = pmb.BART("mu", X, Y, m=3, response="linear")
-        sigma = pmb.HalfNormal("sigma", 1.0)
-        pmb.Normal("y", mu, sigma, observed=Y)
-        with pytest.warns(UserWarning, match="per-round sampler path"):
-            pmb.sample(tune=2, draws=2, chains=1, random_seed=0,
-                       progressbar=False, store_trees=False)
